@@ -60,19 +60,18 @@ def ber_sweep(
         # one demod pass feeds both BER flavors: hard LLR decisions give the
         # pre-FEC channel-bit errors, the FEC decode of the SAME LLRs gives
         # the post-FEC errors (previously two full FFT/EQ/demap passes).
-        # The comparison runs in the coded-STREAM domain so it is layout-
-        # agnostic (the fused TPU path emits descrambled stream LLRs):
-        # scramble/interleave are position bijections, so the error count
-        # is identical in either domain.
+        # The comparison runs in the coded-STREAM domain: scramble and
+        # interleave are position bijections, so the error count is
+        # identical in either domain.
         lead = rx.shape[:-1]
-        llr_like, _ = modem._demod_at(rx, start)
-        bits, _, _, _ = modem._payload_bits(llr_like, lead)
+        llr, _ = modem._demod_at(rx, start)
+        bits, _, _, _ = modem._payload_bits(llr, lead)
         post = jnp.mean((bits != info).astype(jnp.float32), axis=(1, 2))
         fer = jnp.mean(
             jnp.any(bits != info, axis=-1).astype(jnp.float32), axis=-1)
 
         # pre-FEC: coded stream bits vs hard demapper decisions
-        sllr = modem.coded_stream_llr(llr_like, lead)
+        sllr = modem.coded_stream_llr(llr, lead)
         coded = modem._fec_coded_bits(info)
         pre = jnp.mean(((sllr < 0).astype(jnp.uint8) != coded).astype(jnp.float32),
                        axis=(1, 2))

@@ -1,6 +1,6 @@
 """Device-side channel impairments (jnp mirrors of `gf3x.channel.sims`).
 
-Used by the on-TPU BER sweep (config 3, BASELINE.json:9) and the sharded
+Used by the on-device BER sweep (config 3, BASELINE.json:9) and the sharded
 pipeline step: the whole sweep — modulate → impair → demodulate → count —
 runs as one XLA program with (snr, trial) batch axes, so the channel
 simulator must be jittable (SURVEY.md §6.3: impairments are the framework's

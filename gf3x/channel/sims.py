@@ -6,7 +6,7 @@ for the physical speaker–air–microphone channel in every test (SURVEY.md §5
 "fake backend" analog, §6.3 fault injection).
 
 Host-side NumPy float64 implementations (used by tests, the golden model,
-and fixture generation). Device-side jnp mirrors for on-TPU BER sweeps live
+and fixture generation). Device-side jnp mirrors for on-device BER sweeps live
 in `gf3x.channel.jax_sims`.
 """
 

@@ -129,7 +129,7 @@ class ModemConfig:
     #     consecutive coded bits land on successive OFDM SYMBOLS at the
     #     same bin — a deep frequency notch then hits every codeword as
     #     short, well-separated bursts instead of wiping out one contiguous
-    #     codeword region. Pure reshape/transpose (no TPU gathers).
+    #     codeword region. Pure reshape/transpose (no gathers).
     interleave: bool = True
 
     # --- PRBS seed for known symbols / pilots (class-standard constant)
@@ -159,10 +159,8 @@ class ModemConfig:
     @property
     def strided_pilots(self) -> bool:
         """True when the pilot grid tiles the used band exactly: pilot/data
-        separation is then a reshape + slice instead of a gather — on TPU,
-        elementwise gathers lower catastrophically (SURVEY.md §8 "LDPC in
-        XLA" risk; measured orders-of-magnitude slowdowns), so the standard
-        presets keep this property."""
+        separation is then a reshape + slice instead of a gather, so the
+        standard presets keep this property."""
         return (
             self.pilot_spacing > 0
             and self.pilot_offset == 0

@@ -44,8 +44,8 @@ Z0 = 96
 
 # The 802.16e family keeps 24 block COLUMNS at every rate and varies the
 # block-ROW count: n = 24z always, k = (24 − m_b)·z. That invariance is what
-# makes multi-rate cheap on TPU — the frame's codeword geometry (and the
-# fused receive tail's (24, z, lanes) LDPC ingest layout) never changes.
+# makes multi-rate cheap — the frame's codeword geometry (and the decoder's
+# (24, z) block layout) never changes.
 RATES = ("1/2", "2/3", "3/4", "5/6")
 _RATE_BLOCK_ROWS = {"1/2": 12, "2/3": 8, "3/4": 6, "5/6": 4}
 
@@ -167,8 +167,8 @@ def gf2_solve_parity(z: int, rate: str = "1/2") -> np.ndarray:
 
     Computed once per z on the host by bit-packed Gaussian elimination of
     B·X = A where H = [A | B]. This dense projector turns the *device*
-    encoder into a single (batch × k)·(k × m) matmul on the MXU — the
-    TPU-native replacement for the reference's C back-substitution encoder
+    encoder into a single (batch × k)·(k × m) matmul — the batched
+    replacement for the reference's C back-substitution encoder
     (SURVEY.md §3.1 rebuild consequence).
     """
     H = _dense_H(z, rate)

@@ -1,21 +1,20 @@
-"""LDPC codec: MXU-matmul encoder + batched normalized-min-sum BP decoder.
+"""LDPC codec: matmul encoder + batched normalized-min-sum BP decoder.
 
 The one component where the reference leans on compiled code (the C `ldpc`
 library's encoder and sum-product decoder — SURVEY.md §3.1): here it becomes
-TPU-native JAX (SURVEY.md §8 step 5):
+JAX (SURVEY.md §8 step 5):
 
 - **encode**: parity bits via one (batch×k)·(k×m) float32 matmul against the
-  precomputed GF(2) projector (exact: row sums ≪ 2²⁴), then mod 2 — the
-  systolic-array formulation of back-substitution.
+  precomputed GF(2) projector, then mod 2 — back-substitution as a matmul.
 - **decode**: LAYERED (block-row-serial) normalized min-sum over the
   quasi-cyclic block structure: each block row's check update reads the
   variable totals already updated by this iteration's earlier rows —
   roughly half the iterations to convergence of the flooding schedule at
   the same per-iteration cost. The base matrix is static, so circulant
-  shifts are static rolls and the only reductions are over the tiny static
-  row degree; everything is batch-major for the VPU. No sparse scatter
-  into ragged structures — irregular connectivity is padded to rectangles
-  (SURVEY.md §8 risk "LDPC in XLA").
+  shifts are static rolls (XLA) or index arithmetic (the GPU kernel in
+  `ops/pallas/ldpc_minsum.py`) and the only reductions are over the tiny
+  static row degree. No sparse scatter into ragged structures — irregular
+  connectivity is padded to rectangles (SURVEY.md §8 risk "LDPC in XLA").
 
 A NumPy float64 twin of the decoder (same message schedule) serves the
 golden model; `gf3x/native/` adds a C++ host codec for parity testing.
@@ -203,7 +202,11 @@ class LdpcCode:
 
     # -------------------------------------------------------------- jax path
     def encode_jax(self, u: jnp.ndarray) -> jnp.ndarray:
-        """(..., k) uint8 → (..., n) uint8. Parity via MXU matmul mod 2."""
+        """(..., k) uint8 → (..., n) uint8. Parity via a matmul mod 2.
+
+        Exact at any matmul precision, TF32 included: the operands are 0/1
+        (exact in TF32's 10-bit mantissa) and every row sum stays far below
+        2²⁴, so the float32 accumulation is exact integer arithmetic."""
         Pt = jnp.asarray(self.t.P.T.astype(np.float32))              # (k, m)
         uf = u.astype(jnp.float32)
         p = jnp.dot(uf, Pt, preferred_element_type=jnp.float32)
@@ -211,96 +214,67 @@ class LdpcCode:
         return jnp.concatenate([u.astype(jnp.uint8), p], axis=-1)
 
     def decode_jax(self, llr: jnp.ndarray, iters: int,
-                   use_pallas: bool | None = None,
-                   early_exit: bool = True, with_diag: bool = False):
+                   backend: str | None = None,
+                   early_exit: bool = True, with_diag: bool = False,
+                   interpret: bool = False):
         """(..., n) float32 LLRs (positive ⇒ bit 0) → (..., k) uint8 info bits.
 
         Layered normalized min-sum, all shapes static. Leading dims are
         flattened into the batch axis and restored — callers may vmap/shard
         over them freely.
 
-        Two equivalent backends with the SAME message schedule (bit-equal
-        decodes): a Pallas kernel that keeps the message state VMEM-resident
-        across all iterations (default on TPU), and an XLA formulation with
-        static `jnp.roll` circulants + static indexing (default elsewhere).
-        Neither uses runtime-index gathers/scatters — their elementwise
-        lowering on TPU is orders of magnitude slower (measured 6.2 s vs
-        ~30 ms at batch 4096 codewords; the Pallas kernel removes the
-        remaining per-iteration HBM traffic).
+        `backend` picks one of two formulations with the same message
+        schedule and freeze rule (bit-equal decodes):
+        'triton' — the Pallas kernel (`ops.pallas.ldpc_minsum`), one
+        codeword per program with its messages held on chip; it compiles
+        only for a GPU, or runs in the Pallas interpreter with
+        `interpret=True` — and 'xla' — static `jnp.roll` circulants over
+        the whole batch (`_minsum_xla`, the reference the kernel is tested
+        against). None takes 'triton' where the program is lowered for a
+        CUDA GPU and 'xla' elsewhere.
 
         `early_exit` enables on-device early termination (same freeze rule
-        as `decode`; `iters` becomes the maximum): at operating SNR most
-        codewords converge in <10 of the 25 budgeted iterations, so the
-        dominant decode cost roughly halves.
+        as `decode`; `iters` becomes the maximum).
 
-        `with_diag=True` also returns (iters_run (...,) int32 — passes the
-        codeword's decode batch/block ran — and unsat (...,) bool — True
+        `with_diag=True` also returns (iters_run (...,) int32 — message-
+        update passes the codeword ran — and unsat (...,) bool — True
         where the final hard decisions still violate a parity check): the
         decoder-stress observability of SURVEY.md §6.5.
         """
-        t, z = self.t, self.z
         lead = llr.shape[:-1]
-        lam = llr.reshape(-1, self.n).astype(jnp.float32)
-        B = lam.shape[0]
-        if use_pallas is None:
-            from ..utils.device import pallas_ok
-            use_pallas = pallas_ok()
-        if use_pallas:
-            from ..ops.pallas.ldpc_bp import LANES, minsum_totals_tpu
-            Bp = -(-B // LANES) * LANES
-            lam_t = lam.reshape(B, N_BLOCK_COLS, z).transpose(1, 2, 0)
-            if Bp != B:
-                # pad lanes carry zero LLRs: their all-zero hard decisions
-                # satisfy every check, so they freeze immediately and cannot
-                # stall the shared early-exit loop
-                lam_t = jnp.pad(lam_t, ((0, 0), (0, 0), (0, Bp - B)))
-            tot, diag = minsum_totals_tpu(lam_t, z, iters, early_exit,
-                                          rate=self.rate)
-            total = tot[..., :B].transpose(2, 0, 1).reshape(B, self.n)
-            bits = (total < 0).astype(jnp.uint8)[:, : self.k].reshape(*lead, self.k)
-            if not with_diag:
-                return bits
-            return (bits, diag[1, :B].astype(jnp.int32).reshape(lead),
-                    (diag[0, :B] > 0.5).reshape(lead))
-        lam_b = lam.reshape(B, N_BLOCK_COLS, z)                       # (B, 24, z)
-        tot, it_run, unsat = self._minsum_xla(lam_b, iters, early_exit)
-        total = tot.reshape(B, self.n)
+        lam_b = llr.reshape(-1, N_BLOCK_COLS, self.z).astype(jnp.float32)
+
+        def kernel(lam):
+            from ..ops.pallas.ldpc_minsum import minsum_totals
+            return minsum_totals(lam, self.z, iters, early_exit, self.rate,
+                                 interpret)
+
+        def xla(lam):
+            return self._minsum_xla(lam, iters, early_exit)
+
+        if backend is None:
+            # decided when the program is lowered, for the platform it is
+            # lowered for: a trace cannot see its target device
+            tot, it_run, unsat = jax.lax.platform_dependent(
+                lam_b, cuda=kernel, default=xla)
+        elif backend == "triton":
+            tot, it_run, unsat = kernel(lam_b)
+        elif backend == "xla":
+            tot, it_run, unsat = xla(lam_b)
+        else:
+            raise ValueError(f"unknown LDPC backend {backend!r}; "
+                             "use 'triton' or 'xla'")
+        total = tot.reshape(-1, self.n)
         bits = (total < 0).astype(jnp.uint8)[:, : self.k].reshape(*lead, self.k)
         if not with_diag:
             return bits
-        return (bits, jnp.broadcast_to(it_run, lead), unsat.reshape(lead))
-
-    def decode_lanes(self, lam_t: jnp.ndarray, iters: int,
-                     use_pallas: bool | None = None,
-                     early_exit: bool = True):
-        """Decode LLRs already in the TPU lanes layout: lam_t (24, z, L)
-        f32 (L codewords in lanes, L % 128 == 0 on the Pallas path) →
-        (hard totals (24, z, L) f32, iters_run (L,) int32, unsat (L,) bool).
-
-        The zero-relayout entry point for the fused receive tail: the demap
-        epilogue emits this layout with major-axis transposes only (the
-        batch stays in lanes end to end), and the caller slices info bits
-        from the returned totals. Bit-identical to `decode_jax` (same
-        schedule, same freeze rule).
-        """
-        _, z, L = lam_t.shape
-        assert z == self.z
-        if use_pallas is None:
-            from ..utils.device import pallas_ok
-            use_pallas = pallas_ok()
-        if use_pallas:
-            from ..ops.pallas.ldpc_bp import minsum_totals_tpu
-            tot, diag = minsum_totals_tpu(lam_t, self.z, iters, early_exit,
-                                          rate=self.rate)
-            return tot, diag[1].astype(jnp.int32), diag[0] > 0.5
-        lam_b = lam_t.transpose(2, 0, 1)                              # (L, 24, z)
-        tot, it_run, unsat = self._minsum_xla(lam_b, iters, early_exit)
-        return (tot.transpose(1, 2, 0),
-                jnp.broadcast_to(it_run, (L,)), unsat)
+        return bits, it_run.reshape(lead), unsat.reshape(lead)
 
     def _minsum_xla(self, lam_b: jnp.ndarray, iters: int, early_exit: bool):
-        """The XLA (non-Pallas) layered min-sum core. lam_b: (B, 24, z) →
-        (totals (B, 24, z), passes run (scalar int32), unsat (B,) bool)."""
+        """The XLA layered min-sum core. lam_b: (B, 24, z) → (totals
+        (B, 24, z), passes run per codeword (B,) int32, unsat (B,) bool).
+        The loop runs while any codeword of the batch is unconverged;
+        frozen codewords keep their messages and totals."""
         z = self.z
         B = lam_b.shape[0]
         edges = build_H_blocks(z, self.rate)                          # row-major
@@ -354,26 +328,26 @@ class LdpcCode:
         tot = lam_b
         if early_exit:
             def cond(state):
-                it, done, _, _ = state
+                it, done, _, _, _ = state
                 return (it < iters) & jnp.logical_not(done)
 
             def body(state):
-                it, _, tot, c2v = state
+                it, _, n_upd, tot, c2v = state
                 frozen = jnp.logical_not(unsat_of(tot))
                 tot, c2v = sweep(tot, c2v, frozen)
-                return it + 1, jnp.all(frozen), tot, c2v
+                # a codeword's count is the sweeps that updated it — the
+                # final body, run once everything is frozen, adds nothing
+                n_upd = n_upd + jnp.logical_not(frozen).astype(jnp.int32)
+                return it + 1, jnp.all(frozen), n_upd, tot, c2v
 
-            it, done, tot, _ = jax.lax.while_loop(
-                cond, body, (jnp.int32(0), jnp.bool_(False), tot, c2v))
-            # the loop detects convergence one body late (frozen is computed
-            # inside the body, so the final body's sweep is a no-op): report
-            # the NumPy twin's count — sweeps that actually updated messages
-            it_run = it - done.astype(jnp.int32)
+            _, _, it_run, tot, _ = jax.lax.while_loop(
+                cond, body, (jnp.int32(0), jnp.bool_(False),
+                             jnp.zeros(B, jnp.int32), tot, c2v))
         else:
             def body(_, state):
                 tot, c2v = state
                 return sweep(tot, c2v, None)
 
             tot, _ = jax.lax.fori_loop(0, iters, body, (tot, c2v))
-            it_run = jnp.int32(iters)
+            it_run = jnp.full(B, iters, jnp.int32)
         return tot, it_run, unsat_of(tot)

@@ -3,10 +3,10 @@
 This is the in-repo stand-in for the reference implementation (the reference
 mount was empty — SURVEY.md §0), written FIRST per the build plan
 (SURVEY.md §8 step 1): small, slow, obviously correct. It is the parity
-oracle for the TPU path — `decode(encode(x)) == x` here defines "correct",
+oracle for the JAX path — `decode(encode(x)) == x` here defines "correct",
 and the JAX modem must produce bit-identical *decoded payloads* (not
-bit-identical floats; SURVEY.md §8 risk "Bit-exactness across float32 TPU
-vs float64 NumPy").
+bit-identical floats; SURVEY.md §8 risk "Bit-exactness across float32
+accelerator math vs float64 NumPy").
 
 Covers reference layers L0–L7 (SURVEY.md §2) in one deliberately-plain file:
 chirp + Schmidl–Cox sync, OFDM mod/demod, LS channel estimation, one-tap EQ,

@@ -40,7 +40,7 @@ class LoadingTables:
     all 16-QAM, then all 64-QAM bins), each group in ascending bin index,
     each bin MSB-first I-axis then Q-axis bits — so the map/demap is a few
     static reshapes per group plus ONE static permutation, never a per-bin
-    loop (TPU-first: all shapes compile-time constant from the config)."""
+    loop (all shapes compile-time constant from the config)."""
 
     groups: tuple          # ((m, positions int32 ascending), ...) ascending m>0
     inv_perm: np.ndarray   # (n_data_bins,) int32 into concat(group syms)+[0]
@@ -122,7 +122,7 @@ def interleave_bits(cfg: ModemConfig, arr, inverse: bool = False):
     """Channel-bit interleaver (WIRE_FORMAT v3, SPEC.md §5a).
 
     arr: (..., raw_bits_per_frame) bits (TX) or LLRs (RX). Two stages of
-    pure reshape/transpose (no TPU gathers):
+    pure reshape/transpose (no gathers):
 
     1. symbol spread — the (R × D) rectangle (R = bits per OFDM symbol,
        D = data symbols) written row-major, read column-major: consecutive
@@ -153,8 +153,8 @@ def interleave_pilots(cfg: ModemConfig, dsym: jnp.ndarray) -> jnp.ndarray:
 
     Strided layout (cfg.strided_pilots, the standard presets): the used band
     viewed as (n_pilots, spacing) groups, pilot at slot 0 of each group —
-    pure reshape/concat, no scatter (TPU gathers/scatters are per-element
-    loops). Falls back to scatter for irregular layouts.
+    pure reshape/concat, no scatter. Falls back to scatter for irregular
+    layouts.
     """
     lay = layout(cfg)
     *lead, _ = dsym.shape

@@ -3,8 +3,12 @@
 LS estimate, one-tap FD EQ, and pilot phase/SFO tracking as fused batched
 complex arithmetic (BASELINE.json north-star: "pilot-based least-squares
 channel estimation and one-tap frequency-domain equalization fuse into a
-single complex-arithmetic kernel") — here expressed as jnp ops XLA fuses;
-a hand-fused Pallas variant lives in `gf3x.ops.pallas.equalize`.
+single complex-arithmetic kernel") — here expressed as jnp ops XLA fuses.
+
+The two small matmuls on this path (the Ĥ tap projection and the ISI
+operator) run at HIGHEST precision: a float32 matmul at default precision
+may take TF32 on a GPU (10-bit mantissa, ≈ −60 dB), which would put an
+error floor into Ĥ and from there into every LLR.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ __all__ = ["estimate_channel", "equalize", "pilot_phase_correct",
            "denoise_projection", "isi_profile"]
 
 import functools
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,7 +103,7 @@ def isi_profile(cfg: ModemConfig, H_raw: jnp.ndarray, noise_var: jnp.ndarray):
     r0 = (s_hat - t0)[..., None]
     ang = jnp.float32(2.0 * np.pi / cfg.n_fft) * k * r0
     ramp = jax.lax.complex(jnp.cos(ang), jnp.sin(ang))
-    Ht = (H_raw * ramp) @ jnp.asarray(M).T
+    Ht = jnp.matmul(H_raw * ramp, jnp.asarray(M).T, precision=_HI)
     sigH2 = (noise_var / np.float32(cfg.n_known_symbols))[..., None]
     isi = jnp.maximum(jnp.abs(Ht) ** 2 - sigH2 * jnp.asarray(q), 0.0)
     num = jnp.mean(isi, axis=-1)
@@ -152,7 +158,8 @@ def estimate_channel(cfg: ModemConfig, known_rx: jnp.ndarray, delta=None,
         ang = jnp.float32(2.0 * np.pi / cfg.n_fft) * k * r0
         ramp = jax.lax.complex(jnp.cos(ang), jnp.sin(ang))
         P = jnp.asarray(denoise_projection(cfg))
-        H = ((H * ramp) @ P.T) * jnp.conj(ramp)          # Ĥ'[j] = Σ_k P[j,k]·Ĥ[k]
+        H = (jnp.matmul(H * ramp, P.T, precision=_HI)   # Ĥ'[j] = Σ_k P[j,k]·Ĥ[k]
+             * jnp.conj(ramp))
     if with_isi:
         return H, noise_var, isi
     return H, noise_var

@@ -1,15 +1,15 @@
 """OFDM layer (reference L3, SURVEY.md §2): batched real-FFT mod/demod + CP.
 
 The reference's per-symbol IFFT loop (hot loop #1, SURVEY.md §4.1) becomes a
-single batched `jnp.fft.irfft` over all symbols of all frames — the XLA FFT
-runs once over a (batch·symbols, n_fft) array, which is the TPU-native shape
-(BASELINE.json north-star: "becomes a batched XLA FFT path"). Hermitian
-symmetry for a real waveform is implicit in the rfft/irfft pair.
+single batched `jnp.fft.irfft` over all symbols of all frames — one XLA FFT
+over a (batch·symbols, n_fft) array (BASELINE.json north-star: "becomes a
+batched XLA FFT path"). Hermitian symmetry for a real waveform is implicit
+in the rfft/irfft pair. The FFTs run in full float32; only the clock-offset
+demod, whose δ-warped tones have no FFT form, is a matmul (at HIGHEST
+precision, so no reduced-precision pass reaches the LLRs).
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -17,53 +17,20 @@ import numpy as np
 
 from ..config import ModemConfig
 
-
-@functools.lru_cache(maxsize=None)
-def _dft_tables(cfg: ModemConfig):
-    """Host cos/sin DFT matrices restricted to the used band.
-
-    The receiver needs only n_used of the n_fft/2+1 bins, and the
-    transmitter fills only those — so on TPU both transforms run as one
-    (batch × n_fft)·(n_fft × n_used) real matmul pair on the MXU instead of
-    a full FFT on the VPU (XLA's TPU FFT runs at a fraction of a percent of
-    peak). Exact same math: C[n,k] = cos(2πkn/N), S[n,k] = sin(2πkn/N) over
-    k ∈ [bin_lo, bin_hi].
-    """
-    n = np.arange(cfg.n_fft)[:, None].astype(np.float64)
-    k = np.arange(cfg.bin_lo, cfg.bin_hi + 1)[None, :].astype(np.float64)
-    th = 2.0 * np.pi * n * k / cfg.n_fft
-    C = np.cos(th).astype(np.float32)           # (n_fft, n_used)
-    S = np.sin(th).astype(np.float32)
-    return C, S
-
-__all__ = ["ofdm_modulate", "ofdm_demodulate", "ofdm_dft", "ofdm_dft_lanes"]
+__all__ = ["ofdm_modulate", "ofdm_demodulate", "ofdm_dft"]
 
 
 def ofdm_modulate(cfg: ModemConfig, sym_bins: jnp.ndarray) -> jnp.ndarray:
     """(..., S, n_used) complex64 bin values → (..., S·(N+CP)) float32 samples.
 
     The used bins are a contiguous range [bin_lo, bin_hi], so spectrum
-    placement is a zero-pad (concat) — never a scatter, which lowers to a
-    per-element store loop on TPU. Inverse real FFT, symbol-RMS scaling,
-    CP prepend, flatten.
+    placement is a zero-pad (concat), never a scatter. Inverse real FFT,
+    symbol-RMS scaling, CP prepend, flatten.
     """
-    from ..utils.device import computation_on_tpu
-
     *lead, S, _ = sym_bins.shape
-    if computation_on_tpu():
-        # x[n] = (2/N)·Σ_{k∈used}(Re X_k·cos θ − Im X_k·sin θ): two MXU
-        # matmuls over the used band (DC/Nyquist are zero by construction)
-        C, Sm = _dft_tables(cfg)
-        scale = jnp.float32(2.0 * cfg.ofdm_scale / cfg.n_fft)
-        hi = jax.lax.Precision.HIGHEST  # TPU default = one bf16 pass (−45 dB)
-        x = (jnp.matmul(sym_bins.real.astype(jnp.float32), jnp.asarray(C.T),
-                        precision=hi, preferred_element_type=jnp.float32)
-             - jnp.matmul(sym_bins.imag.astype(jnp.float32), jnp.asarray(Sm.T),
-                          precision=hi, preferred_element_type=jnp.float32)) * scale
-    else:
-        pad = [(0, 0)] * (len(lead) + 1) + [(cfg.bin_lo, cfg.n_bins - cfg.bin_hi - 1)]
-        spec = jnp.pad(sym_bins.astype(jnp.complex64), pad)
-        x = jnp.fft.irfft(spec, cfg.n_fft, axis=-1).astype(jnp.float32) * jnp.float32(cfg.ofdm_scale)
+    pad = [(0, 0)] * (len(lead) + 1) + [(cfg.bin_lo, cfg.n_bins - cfg.bin_hi - 1)]
+    spec = jnp.pad(sym_bins.astype(jnp.complex64), pad)
+    x = jnp.fft.irfft(spec, cfg.n_fft, axis=-1).astype(jnp.float32) * jnp.float32(cfg.ofdm_scale)
     with_cp = jnp.concatenate([x[..., -cfg.cp:], x], axis=-1)
     return with_cp.reshape(*lead, S * cfg.symbol_len)
 
@@ -80,9 +47,9 @@ def ofdm_demodulate(cfg: ModemConfig, samples: jnp.ndarray,
     SFO-corrected demod: with a TX/RX clock-rate offset δ the received
     waveform is the transmitted one resampled by (1+δ), so bin k's tone sits
     at frequency k·(1+δ) on the RX sampling grid. Instead of resampling
-    (a per-element gather — catastrophic on TPU), the used-band DFT matrix
-    itself is warped to those frequencies: the SAME matmul demod, with the
-    cos/sin tables built on device from δ. Exact to f32 phase rounding; the
+    (a per-element gather), the used-band DFT matrix itself is warped to
+    those frequencies: a matmul demod with the cos/sin tables built on
+    device from δ. Exact to f32 phase rounding; the
     residual per-symbol phase ramps (window drift) are absorbed by the
     standard pilot tracking downstream.
     """
@@ -95,11 +62,8 @@ def ofdm_demodulate(cfg: ModemConfig, samples: jnp.ndarray,
 def ofdm_dft(cfg: ModemConfig, sym: jnp.ndarray,
              delta: jnp.ndarray | None = None) -> jnp.ndarray:
     """Used-band DFT of already CP-stripped symbols: (..., S, n_fft) float32
-    → (..., S, n_used) complex64. The tail of `ofdm_demodulate` (same math,
-    same matmul tables); the fused Pallas cut emits symbols in this layout
-    directly, skipping the reshape/CP-slice copy."""
-    from ..utils.device import computation_on_tpu
-
+    → (..., S, n_used) complex64. The tail of `ofdm_demodulate`; the frame
+    cut (`ops.sync.cut_symbols`) emits symbols in this layout directly."""
     if delta is not None:
         n = jnp.arange(cfg.n_fft, dtype=jnp.float32)[:, None]
         k = jnp.arange(cfg.bin_lo, cfg.bin_hi + 1, dtype=jnp.float32)[None, :]
@@ -113,50 +77,5 @@ def ofdm_dft(cfg: ModemConfig, sym: jnp.ndarray,
         im = -jnp.matmul(xr, Sm, precision=hi,
                          preferred_element_type=jnp.float32) * inv
         return jax.lax.complex(re, im)
-    if computation_on_tpu():
-        # used-band DFT as two MXU matmuls: Y_k = Σ_n x[n](cos θ − i·sin θ)
-        C, Sm = _dft_tables(cfg)
-        inv = jnp.float32(1.0 / cfg.ofdm_scale)
-        xr = sym.astype(jnp.float32)
-        # HIGH (bf16x3, ~1e-5 rel = −100 dB) halves the matmul passes of
-        # HIGHEST (bf16x6): the demod error floor stays ≥60 dB under the
-        # noise of even a 35 dB-SNR capture. (TPU default would be one bf16
-        # pass at −45 dB — NOT acceptable for a demod that feeds LLRs.)
-        hi = jax.lax.Precision.HIGH
-        re = jnp.matmul(xr, jnp.asarray(C), precision=hi,
-                        preferred_element_type=jnp.float32) * inv
-        im = -jnp.matmul(xr, jnp.asarray(Sm), precision=hi,
-                         preferred_element_type=jnp.float32) * inv
-        return jax.lax.complex(re, im)
     spec = jnp.fft.rfft(sym, cfg.n_fft, axis=-1) / np.float32(cfg.ofdm_scale)
     return spec[..., cfg.bin_lo: cfg.bin_hi + 1].astype(jnp.complex64)
-
-
-def ofdm_dft_lanes(cfg: ModemConfig, sym: jnp.ndarray,
-                   delta: jnp.ndarray | None = None) -> jnp.ndarray:
-    """Used-band DFT straight into the fused kernels' LANES layout:
-    (B, S, n_fft) f32 CP-stripped symbols → (S, 2, n_used, B) f32 re/im
-    planes — the einsum emits the batch-minor layout INSIDE the matmul
-    epilogue instead of a separate 40 MB transpose pass afterwards.
-    Measured (tools/bench_relayout.py, bench geometry B=1024): matmul +
-    stack/transpose 0.859 ms vs this einsum form 0.558 ms; a cut kernel
-    pre-transposing its output (the r4 deferred idea) measured 0.568 ms —
-    i.e. the WHOLE prize is in the output layout, none in the input, so no
-    kernel rebuild is warranted. Same bf16x3 math and precision as
-    `ofdm_dft`; TPU-path callers only (the CPU twin keeps the rfft)."""
-    if delta is not None:
-        n = jnp.arange(cfg.n_fft, dtype=jnp.float32)[:, None]
-        k = jnp.arange(cfg.bin_lo, cfg.bin_hi + 1, dtype=jnp.float32)[None, :]
-        th = jnp.float32(2.0 * np.pi / cfg.n_fft) * n * k * (1.0 + delta)
-        C, Sm = jnp.cos(th), jnp.sin(th)
-    else:
-        Ch, Sh = _dft_tables(cfg)
-        C, Sm = jnp.asarray(Ch), jnp.asarray(Sh)
-    inv = jnp.float32(1.0 / cfg.ofdm_scale)
-    hi = jax.lax.Precision.HIGH
-    xr = sym.astype(jnp.float32)
-    re = jnp.einsum("bsn,nu->sub", xr, C, precision=hi,
-                    preferred_element_type=jnp.float32) * inv
-    im = -jnp.einsum("bsn,nu->sub", xr, Sm, precision=hi,
-                     preferred_element_type=jnp.float32) * inv
-    return jnp.stack([re, im], axis=1)                # (S, 2, n_used, B)

@@ -108,9 +108,13 @@ def sc_clock_offset(cfg: ModemConfig, sc_win: jnp.ndarray,
     h1 = sc_win[..., guard: guard + L]
     h2 = sc_win[..., guard + half: guard + half + L]
     Cj, Sj = jnp.asarray(C), jnp.asarray(S)
-    # Y = Σ_n h[n]·e^{-2πiqn/half} as two real matmuls per half
-    y1 = jax.lax.complex(h1 @ Cj, -(h1 @ Sj))
-    y2 = jax.lax.complex(h2 @ Cj, -(h2 @ Sj))
+    # Y = Σ_n h[n]·e^{-2πiqn/half} as two real matmuls per half, at
+    # HIGHEST: a default-precision float32 matmul may run in TF32 on a GPU
+    def dft(h, W):
+        return jnp.matmul(h, W, precision=jax.lax.Precision.HIGHEST)
+
+    y1 = jax.lax.complex(dft(h1, Cj), -dft(h1, Sj))
+    y2 = jax.lax.complex(dft(h2, Cj), -dft(h2, Sj))
     rho = jnp.conj(y1) * y2                                      # (..., nq)
     if pool:
         rho = jnp.sum(rho.reshape(-1, rho.shape[-1]), axis=0)    # (nq,)

@@ -11,8 +11,6 @@ program over a (batch, T) recording block.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -68,60 +66,14 @@ def bounded_sync_nfft(T: int, search_len: int, chirp_len: int,
 
 def rx_spectrum(rx: jnp.ndarray, nfft: int) -> jnp.ndarray:
     """rfft of the recording at the sync FFT length — computed once and
-    shared by the matched filter and the frame-window extraction.
-
-    Stays on jnp.fft (full demod-grade accuracy: `extract_windows_spec`
-    consumers feed the demodulator): the VPU forward rfft measured 12.6 ms
-    for (1024, 65536) vs 14.4 ms for the matmul four-step form at HIGHEST —
-    both HBM-bandwidth-bound at that size. Correlation-only consumers use
-    `_mf_spectrum` instead (matmul at DEFAULT — 5× faster at the bounded
-    sync shapes)."""
+    shared by the matched filter and the frame-window extraction."""
     return jnp.fft.rfft(rx, nfft, axis=-1)
-
-
-def _mf_spectrum(rx: jnp.ndarray, nfft: int) -> jnp.ndarray:
-    """Forward transform for peak-picked/thresholded correlations ONLY
-    (the −45 dB single-bf16-pass floor is acceptable there — peaks sit
-    10–40 dB above it): the four-step matmul form at DEFAULT precision
-    measured 0.64 ms vs 3.16 ms for the VPU rfft at (1024, 7689→8192),
-    the bounded-sync shape (r3; the r2 note claiming the VPU form wins at
-    8192 did not reproduce). Never feed this spectrum to
-    `extract_windows_spec` — demod windows need `rx_spectrum`."""
-    from ..utils.device import computation_on_tpu
-    from .mmfft import good_mm_size, rfft_mm
-
-    if good_mm_size(nfft) and computation_on_tpu():
-        return rfft_mm(rx, nfft, jax.lax.Precision.DEFAULT)
-    return jnp.fft.rfft(rx, nfft, axis=-1)
-
-
-def _irfft(X: jnp.ndarray, nfft: int,
-           precision: jax.lax.Precision | None = None,
-           n_out: int | None = None) -> jnp.ndarray:
-    """Inverse real FFT, routed to the MXU matmul formulation on TPU for
-    large sizes (the VPU FFT measured 17 ms per (1024, 65536) inverse; the
-    four-step matmul form ~12 ms at HIGHEST, ~6 ms at HIGH, ~2 ms at
-    DEFAULT). `precision` applies to the matmul form only. `n_out` prunes
-    the matmul form to (at least) the first n_out outputs — a correlation
-    that only reads lags < T skips the second-stage columns past T; the
-    VPU fallback always returns the full length. Callers must slice."""
-    from ..utils.device import computation_on_tpu
-    from .mmfft import good_mm_size, irfft_mm
-
-    if good_mm_size(nfft) and computation_on_tpu():
-        return irfft_mm(X, nfft, precision, n_out)
-    return jnp.fft.irfft(X, nfft, axis=-1).astype(jnp.float32)
 
 
 def matched_filter_spec(R: jnp.ndarray, chirp: np.ndarray, T: int, nfft: int) -> jnp.ndarray:
-    """Matched filter from a precomputed spectrum R = rfft(rx, nfft).
-
-    The inverse transform runs at DEFAULT matmul precision (one bf16 pass,
-    −45 dB error floor): the output is only argmax-peak-picked and
-    NCC-thresholded, never demodulated, and the correlation peak sits
-    10–40 dB above the floor at any decodable SNR."""
+    """Matched filter from a precomputed spectrum R = rfft(rx, nfft)."""
     c_f = jnp.asarray(np.conj(np.fft.rfft(chirp, nfft)).astype(np.complex64))
-    M = _irfft(R * c_f, nfft, jax.lax.Precision.DEFAULT, n_out=T)
+    M = jnp.fft.irfft(R * c_f, nfft, axis=-1)
     return M[..., :T].astype(jnp.float32)
 
 
@@ -139,76 +91,20 @@ def matched_filter(rx: jnp.ndarray, chirp: np.ndarray,
     T = rx.shape[-1]
     if nfft is None:
         nfft = sync_nfft(T, len(chirp))
-    return matched_filter_spec(_mf_spectrum(rx, nfft), chirp, T, nfft)
-
-
-#: Element budget for the direct-correlation weight matrix (64 MB at bf16).
-#: Above this the FFT form wins on memory traffic; below it, one big MXU
-#: matmul beats the multi-relayout FFT pipeline outright.
-_MF_DIRECT_MAX_W = 32 << 20
+    return matched_filter_spec(jnp.fft.rfft(rx, nfft, axis=-1), chirp, T, nfft)
 
 
 def bounded_mf_shape(T: int, search_len: int, chirp_len: int,
-                     decimate: int = 2) -> tuple[int, int, bool]:
+                     decimate: int = 2) -> tuple[int, int]:
     """Static geometry of the bounded matched filter that
     `find_frame_start(search_len=..., decimate=...)` runs on a (..., T)
-    recording: (seg_len, n_lags, direct), where `direct` is True when the
-    on-TPU router takes the Toeplitz-matmul form (seg·lags within
-    `_MF_DIRECT_MAX_W`) and False for the FFT form. Exported so perf
-    accounting (bench.py flops/bytes models) describes the SAME routing
-    as the implementation instead of a private copy that can drift."""
+    recording: (seg_len, n_lags) — the correlated prefix length and the
+    candidate lags, both after decimation. Exported so perf accounting
+    (bench.py's bytes model) describes the same geometry as the
+    implementation instead of a private copy that can drift."""
     S = min(search_len, T)
     seg_len = -(-min(S + chirp_len, T) // decimate)
-    n_lags = min(S // decimate, seg_len)
-    return seg_len, n_lags, seg_len * n_lags <= _MF_DIRECT_MAX_W
-
-
-@functools.lru_cache(maxsize=8)
-def _toeplitz_mf_weights(chirp_key: bytes, seg_len: int,
-                         n_lags: int) -> np.ndarray:
-    """Host-built (seg_len, n_lags) correlation weights W[j, n] = c[j − n]
-    (zero outside 0 ≤ j − n < len(c)), so seg @ W is the linear matched
-    filter at lags [0, n_lags) — identical math to the zero-padded FFT
-    cross-correlation. Cached per (chirp, geometry)."""
-    c = np.frombuffer(chirp_key, dtype=np.float32)
-    W = np.zeros((seg_len, n_lags), np.float32)
-    for n in range(n_lags):
-        j1 = min(n + len(c), seg_len)
-        W[n:j1, n] = c[: j1 - n]
-    return W
-
-
-def matched_filter_direct(seg: jnp.ndarray, chirp: np.ndarray,
-                          n_lags: int) -> jnp.ndarray:
-    """|matched filter| over lags [0, n_lags) as ONE bf16 MXU matmul.
-
-    The bounded sync search correlates a (B, ~8k) prefix against a ~5k-tap
-    chirp for ~2k lags — an ideally-shaped (M=B, K=seg, N=lags) matmul the
-    MXU runs at ~0.2 ms where the FFT pipeline (pack → two matmul stages →
-    mult → two matmul stages → unpack) measured ~1.2 ms at B=1024 on v5e.
-    bf16 inputs move the argmax by ≤1 sample on ~9 % of noisy rows
-    (measured); the CP backoff absorbs timing error of that class, and the
-    6 dB first-arrival refinement re-picks within the same |m| array either
-    way. Peak-picked/thresholded consumers ONLY — never demodulate this.
-    """
-    W = _toeplitz_mf_weights(
-        np.ascontiguousarray(chirp, np.float32).tobytes(),
-        seg.shape[-1], n_lags)
-    m = jnp.matmul(seg.astype(jnp.bfloat16), jnp.asarray(W, jnp.bfloat16),
-                   preferred_element_type=jnp.float32)
-    return jnp.abs(m)
-
-
-def _mf_bounded_abs(seg: jnp.ndarray, chirp: np.ndarray, n_lags: int,
-                    nfft: int) -> jnp.ndarray:
-    """|m| over the bounded lag range: direct MXU correlation when the
-    weight matrix fits the budget (TPU only), FFT cross-correlation
-    otherwise (CPU, or searches too wide for a resident Toeplitz)."""
-    from ..utils.device import computation_on_tpu
-
-    if computation_on_tpu() and seg.shape[-1] * n_lags <= _MF_DIRECT_MAX_W:
-        return matched_filter_direct(seg, chirp, n_lags)
-    return jnp.abs(matched_filter(seg, chirp, nfft=nfft))[..., :n_lags]
+    return seg_len, min(S // decimate, seg_len)
 
 
 def streaming_matched_filter(rx: jnp.ndarray, chirp: np.ndarray,
@@ -231,8 +127,7 @@ def streaming_matched_filter(rx: jnp.ndarray, chirp: np.ndarray,
 
     def body(carry, i):
         seg = jax.lax.dynamic_slice_in_dim(rx_pad, i * chunk, chunk + L, axis=-1)
-        m = _irfft(_mf_spectrum(seg, F) * c_f, F,
-                   jax.lax.Precision.DEFAULT, n_out=chunk)
+        m = jnp.fft.irfft(jnp.fft.rfft(seg, F, axis=-1) * c_f, F, axis=-1)
         return carry, m[..., :chunk].astype(jnp.float32)
 
     _, ms = jax.lax.scan(body, 0, jnp.arange(n_chunks))
@@ -248,10 +143,7 @@ def extract_windows_spec(
 
     The shift theorem does the data-dependent slice as an elementwise phase
     ramp + one irfft: rolling rx left by `start` (y[n] = x[n+start])
-    multiplies bin k by exp(+2πik·start/nfft). A vmap'd `dynamic_slice`
-    lowers to a per-element gather on TPU (measured 109 ms for a 126 MB cut
-    at batch 1024); this formulation reuses the sync FFT and costs one
-    inverse FFT (~10 ms).
+    multiplies bin k by exp(+2πik·start/nfft), reusing the sync spectrum.
 
     The ramp index start·k is reduced mod nfft in *integer* arithmetic
     before touching float32 (start·k reaches 2⁴⁴ on minute-long recordings
@@ -263,12 +155,15 @@ def extract_windows_spec(
     s = starts.astype(jnp.uint32)[..., None]
     m = (s * k) & jnp.uint32(nfft - 1)           # (start·k) mod nfft, exact
     ang = jnp.float32(2.0 * np.pi / nfft) * m.astype(jnp.float32)
-    # HIGH (bf16x3): the extracted windows feed the demodulator, so the
-    # −45 dB single-pass floor is not acceptable, but ~1e-5 rel is ≈50 dB
-    # below the noise of even a 35 dB-SNR capture
-    rolled = _irfft(R * jax.lax.complex(jnp.cos(ang), jnp.sin(ang)), nfft,
-                    jax.lax.Precision.HIGH)
+    rolled = jnp.fft.irfft(R * jax.lax.complex(jnp.cos(ang), jnp.sin(ang)),
+                           nfft, axis=-1)
     return rolled[..., :need].astype(jnp.float32)
+
+
+#: Blocks a `gather_cut` window may run past the recording's whole-block
+#: prefix (read as zeros): nb·block < need + 2·block, so two blocks cover
+#: every start `max_cut_start` allows.
+_OVERRUN_BLOCKS = 2
 
 
 def gather_cut(rx: jnp.ndarray, starts: jnp.ndarray, need: int,
@@ -277,43 +172,26 @@ def gather_cut(rx: jnp.ndarray, starts: jnp.ndarray, need: int,
 
     `win` starts at floor(start/block)·block — i.e. r = start − win_start ∈
     [0, block) samples EARLY — and covers ≥ start+need. The cut is one
-    contiguous (nb, block) dynamic slice per row over the block axis
-    (measured 1.05 ms at (1024, 47472)→(1024, 32128) vs 3.70 ms for the
-    take_along_axis form and ~109 ms for a per-sample slice), and the
-    misalignment r is returned for the consumer to absorb: an OFDM demod
-    folds it into a post-FFT phase ramp (the CP absorbs the window shift),
-    so no FFT pair is needed in the cut at all (`extract_windows_spec`
-    remains for consumers that need the exact time-domain window).
+    contiguous (nb, block) dynamic slice per row over the block axis (a
+    coalesced gather of whole blocks), and the misalignment r is returned
+    for the consumer to absorb: an OFDM demod folds it into a post-FFT
+    phase ramp (the CP absorbs the window shift), so no FFT pair is needed
+    in the cut at all (`extract_windows_spec` remains for consumers that
+    need the exact time-domain window).
 
     BOUNDARY SEMANTICS: the cut reads only the whole-block PREFIX of the
     recording — any window samples falling in the ragged tail
     [floor(T/block)·block, T) or beyond read as ZEROS (not the recording's
-    tail samples), on every path. Clamp starts with `max_cut_start` to
-    guarantee a verbatim window; only windows butting the recording end
-    are affected.
+    tail samples). A window may run at most two blocks past that prefix,
+    which covers every start up to `max_cut_start(T, need, block)`; later
+    starts clamp to the last such window (r saturates at block − 1).
     """
-    from ..utils.device import pallas_ok
-
     *lead, T = rx.shape
-    B = int(np.prod(lead)) if lead else 1
-    # round the window up to a multiple of 8 blocks: the TPU kernels' DMA
-    # slice shapes must be sublane-tile-aligned (consumers slice fixed
-    # subranges out of `win`, so the wider cut is free). Windows are cut
-    # from the block-aligned PREFIX of the recording — zero copies: no pad,
-    # no relayout — so the start is clamped to `max_cut_start(T, need)`;
-    # callers keep their cuts inside that bound (Modem._cut_frame does).
-    # All three paths (group kernel, per-row kernel, XLA fallback) share
-    # the same clamp and return identical values.
     nb = -(-(need + block) // block)
-    nb = -(-nb // 8) * 8
     nf = T // block                                    # whole blocks in rx
-    # windows may overrun the recording's block-aligned prefix by up to the
-    # 8-block alignment slack — those samples read as zeros on every path
-    # (the group kernel's zeroed scratch tail, an explicit pad elsewhere)
-    qcap = nf + 8 - nb
     sflat = jnp.broadcast_to(starts.astype(jnp.int32), tuple(lead)).reshape(-1)
     rx2 = rx.reshape(-1, T)
-    on_tpu = pallas_ok()
+    qcap = nf + _OVERRUN_BLOCKS - nb
     if qcap < 0:
         # recording shorter than the window: zero-pad to one window and cut
         # at block 0 (tiny-input fallback; decode is degenerate here anyway)
@@ -322,30 +200,11 @@ def gather_cut(rx: jnp.ndarray, starts: jnp.ndarray, need: int,
         r = jnp.clip(sflat, 0, block - 1).reshape(tuple(lead))
         return win, r
     q = jnp.clip(sflat // block, 0, qcap)
-    # the Pallas kernels' in-VMEM extraction is vector loads at offset
-    # q·block — Mosaic requires the lane index provably 128-aligned, so
-    # sub-128 blocks (tiny-CP configs) take the XLA fallback
-    aligned = block % 128 == 0
-    if (on_tpu and aligned and B % 8 == 0
-            and 2 * 8 * (nf + 8) * block * 4 <= _pallas_stage_bytes()):
-        # whole-8-row-group DMA through VMEM staging + lane-aligned
-        # extraction: every input byte moves once, straight off the caller's
-        # (B, T) layout (~4× the XLA form, no pad/relayout copy at all)
-        from .pallas.gather_cut import gather_cut_group_tpu
-        g = gather_cut_group_tpu(rx2, q, block, nb)
-    else:
-        rxp = jnp.pad(rx2[:, : nf * block], ((0, 0), (0, 8 * block)))
-        xb = rxp.reshape(-1, nf + 8, block)
-        if on_tpu and aligned:
-            # one contiguous per-row DMA on the (B, n_blocks, block) tile
-            # view (~2× the vmap'd dynamic_slice below, which pays the 2-D
-            # layout's 8-row tile interleave — see ops/pallas/gather_cut.py)
-            from .pallas.gather_cut import gather_cut_tpu
-            g = gather_cut_tpu(xb, q, nb)
-        else:
-            g = jax.vmap(
-                lambda row, s: jax.lax.dynamic_slice(row, (s, 0), (nb, block))
-            )(xb, q)
+    rxp = jnp.pad(rx2[:, : nf * block], ((0, 0), (0, _OVERRUN_BLOCKS * block)))
+    xb = rxp.reshape(-1, nf + _OVERRUN_BLOCKS, block)
+    g = jax.vmap(
+        lambda row, s: jax.lax.dynamic_slice(row, (s, 0), (nb, block))
+    )(xb, q)
     win = g.reshape(*lead, nb * block)
     r = jnp.clip(sflat - q * block, 0, block - 1).reshape(tuple(lead))
     return win, r
@@ -353,48 +212,18 @@ def gather_cut(rx: jnp.ndarray, starts: jnp.ndarray, need: int,
 
 def cut_symbols(rx: jnp.ndarray, starts: jnp.ndarray, *, S: int, n_fft: int,
                 sym_len: int, cp: int, body_off: int, sc_off: int,
-                block: int = 128, max_start_span: int | None = None):
-    """Fused frame cut + CP strip: (syms (..., S, n_fft), scw (..., n_fft)
-    or None, roll (...,)).
+                block: int = 128):
+    """Frame cut + CP strip: (syms (..., S, n_fft), scw (..., n_fft) or
+    None, roll (...,)).
 
     Symbol s of row i is rx[i, w + body_off + s·sym_len + cp :][:n_fft]
     with w = floor(start/block)·block (roll = start − w, for the consumer's
     post-FFT phase ramp, exactly as `gather_cut`); scw is the n_fft window
-    at w + sc_off (None when sc_off < 0). On TPU with B % 8 == 0 this is
-    one Pallas kernel writing the DFT-ready (..., S, n_fft) layout straight
-    out of the staging buffer — no window writeback, no reshape/CP-slice
-    copy; elsewhere it derives the same values from `gather_cut`.
-
-    `max_start_span` (static): a guaranteed bound on max(starts) −
-    min(starts) across ANY group of rows — the bounded-sync case, where
-    every start lies in [0, search_len). The kernel then stages only
-    (span + window) of each row group instead of the recording's whole
-    prefix (less HBM traffic, smaller VMEM). Starts that violate the bound
-    are clamped into it (a mis-cut on those rows, exactly like a mis-sync
-    — never an out-of-bounds read).
+    at w + sc_off (None when sc_off < 0). Same boundary rule as
+    `gather_cut`.
     """
-    from ..utils.device import pallas_ok
-
-    *lead, T = rx.shape
-    B = int(np.prod(lead)) if lead else 1
-    need, nf, nb, ws, aligned = _cut_plan(
-        T, S, n_fft, sym_len, cp, body_off, sc_off, block, max_start_span)
-    # rows per grid step: more rows amortize the ~5 µs/step grid cost and
-    # the DMA issue cost (measured 1.42 → 0.9 ms at B=1024), bounded by the
-    # staging budget (2 double-buffered (rows, ws·block) f32 slots)
-    rows = max((r for r in (32, 16, 8) if B % r == 0
-                and 2 * r * (ws + 8) * block * 4 <= _pallas_stage_bytes()),
-               default=0)
-    if (pallas_ok() and aligned and rows and nf + 8 - nb >= 0
-            and ws >= nb):
-        from .pallas.gather_cut import cut_symbols_tpu
-        q, qb, r = _cut_qqb(starts, lead, block, nf, nb, ws, rows)
-        syms, scw = cut_symbols_tpu(rx.reshape(-1, T), q, qb, block, S,
-                                    n_fft, body_off, sym_len, cp, sc_off,
-                                    rows, ws)
-        syms = syms.reshape(*lead, S, n_fft)
-        scw = scw.reshape(*lead, n_fft) if sc_off >= 0 else None
-        return syms, scw, r
+    *lead, _ = rx.shape
+    need = max(body_off + S * sym_len, (sc_off + n_fft) if sc_off >= 0 else 0)
     win, r = gather_cut(rx, starts, need, block)
     body = win[..., body_off: body_off + S * sym_len]
     syms = body.reshape(*lead, S, sym_len)[..., cp: cp + n_fft]
@@ -402,159 +231,13 @@ def cut_symbols(rx: jnp.ndarray, starts: jnp.ndarray, *, S: int, n_fft: int,
     return syms, scw, r
 
 
-def _cut_plan(T: int, S: int, n_fft: int, sym_len: int, cp: int,
-              body_off: int, sc_off: int, block: int,
-              max_start_span: int | None):
-    """Static geometry shared by `cut_symbols` and `cut_dft_spectra`:
-    (need, nf, nb, ws, aligned)."""
-    need = max(body_off + S * sym_len, (sc_off + n_fft) if sc_off >= 0 else 0)
-    nf = T // block
-    nb = -(-(need + block) // block)
-    nb = -(-nb // 8) * 8
-    # Mosaic vector loads need every extraction offset (q·block + body_off
-    # + s·sym_len + cp, and q·block + sc_off) provably 128-lane-aligned:
-    # true for GF3 geometries (cp 256, sym_len 1280, sc_off 384), false for
-    # tiny-CP configs, which take the XLA fallback (caught on hardware by
-    # tools/tpu_parity.py — CI's interpret mode never checks)
-    aligned = (block % 128 == 0 and body_off % 128 == 0 and cp % 128 == 0
-               and sym_len % 128 == 0 and (sc_off < 0 or sc_off % 128 == 0))
-    if max_start_span is not None:
-        ws = min(max_start_span // block + 1 + nb, nf)
-    else:
-        ws = nf
-    return need, nf, nb, ws, aligned
-
-
-def _cut_qqb(starts: jnp.ndarray, lead: list, block: int, nf: int, nb: int,
-             ws: int, rows: int):
-    """Per-row window block q, per-group staging base qb, and the residual
-    roll — the cut kernels' caller contract (see `cut_symbols_tpu`)."""
-    sflat = jnp.broadcast_to(starts.astype(jnp.int32),
-                             tuple(lead)).reshape(-1)
-    q = jnp.clip(sflat // block, 0, nf + 8 - nb)
-    # per-group staging base: the group's smallest window block, clamped so
-    # base + ws stays inside the whole-block prefix; rows beyond the staged
-    # span clamp into it
-    qb = jnp.min(q.reshape(-1, rows), axis=1)
-    qb = jnp.clip(qb, 0, max(nf - ws, 0))
-    # clamp span-violating rows to a FULLY-staged window so the result
-    # equals the unclamped cut at the clamped start; the 8-block slack
-    # (windows overrunning the staged span read the kernel's zero tail) is
-    # only correct when the span butts the recording prefix end — there
-    # "past the span" and "past the recording" coincide
-    qbr = qb.repeat(rows)
-    slack = jnp.where(qbr >= nf - ws, 8, 0)
-    q = jnp.minimum(q, qbr + (ws - nb) + slack)
-    r = jnp.clip(sflat - q * block, 0, block - 1).reshape(tuple(lead))
-    return q, qb, r
-
-
-@functools.lru_cache(maxsize=None)
-def _cut_dft_tables(cfg: ModemConfig):
-    """bf16 hi/lo splits of the used-band DFT tables with the demod scale
-    folded in: (C_hi, C_lo, S_hi, S_lo), each TRANSPOSED to
-    (n_used, n_fft) bf16 — the kernel's A·Bᵀ dot orientation — where
-    C ≈ cos(θ)ᵀ/ofdm_scale and S ≈ −sin(θ)ᵀ/ofdm_scale. The in-kernel
-    bf16x3 dots against these match `ofdm_dft`'s Precision.HIGH matmuls to
-    the shared ~1e-5 floor (ops/pallas/cut_dft.py)."""
-    import ml_dtypes
-
-    from .ofdm import _dft_tables
-
-    bf16 = np.dtype(ml_dtypes.bfloat16)
-    C, Sm = _dft_tables(cfg)
-    inv = np.float32(1.0 / cfg.ofdm_scale)
-    out = []
-    for t in (C.T * inv, -Sm.T * inv):
-        t = np.ascontiguousarray(t)
-        hi = t.astype(bf16)                  # pure host numpy: this cache
-        lo = (t - hi.astype(np.float32)).astype(bf16)  # builds under jit traces
-        out += [hi, lo]
-    return tuple(out)
-
-
-def cut_dft_spectra(cfg: ModemConfig, rx: jnp.ndarray, starts: jnp.ndarray,
-                    *, S: int, body_off: int, sc_off: int, block: int = 128,
-                    max_start_span: int | None = None,
-                    interpret: bool = False):
-    """Fused `cut_symbols` + used-band DFT (ops/pallas/cut_dft.py): the
-    symbol matrix never round-trips HBM and the cut's staging DMA overlaps
-    the DFT's MXU dots. Returns (Yl (S, 2, n_used, B) f32 re/im spectra in
-    the EQ kernels' LANES layout, scw (..., n_fft) or None), or None when
-    the geometry can't take the kernel (caller falls back to `cut_symbols`
-    + `ofdm_dft`): unaligned offsets, no viable row grouping,
-    CPU/interpret hosts.
-
-    Yl[s, 0, :, b] + i·Yl[s, 1, :, b] ≈ the DEROLLED
-    ofdm_dft(cfg, syms)[b, s] to the bf16x3 floor — the block-misalignment
-    phase ramp is applied in the kernel epilogue, and the relayout from
-    the kernel's group-major output to lanes is the one XLA transpose pass
-    this chain pays (measured ~0.09 ms at bench geometry)."""
-    from ..utils.device import pallas_ok
-
-    if not (pallas_ok() or interpret):
-        return None
-    *lead, T = rx.shape
-    B = int(np.prod(lead)) if lead else 1
-    need, nf, nb, ws, aligned = _cut_plan(
-        T, S, cfg.n_fft, cfg.symbol_len, cfg.cp, body_off, sc_off, block,
-        max_start_span)
-    n_fft, cp, sym_len, U = cfg.n_fft, cfg.cp, cfg.symbol_len, cfg.n_used
-    Up = -(-U // 128) * 128          # Mosaic lane padding
-    # lanes_out (the kernel emitting the EQ kernels' (S, 2, U, B) layout
-    # via output-block revisiting) is a MEASURED NON-LEVER composed:
-    # 3.46 vs 2.38 ms/step at bench geometry (2026-08-19) — the revisited
-    # (S, 2, U, 128) block is ~27 MB of VMEM held across 128//rows grid
-    # steps, and the per-phase 32-lane stripe stores serialize against it.
-    # Group-major + the XLA relayout below stays the fused route's layout.
-    lanes_out = False
-    # VMEM estimate per grid step: double-buffered staging + the DFT
-    # operand scratch + bf16 hi/lo copies + resident tables + dot results
-    # + double-buffered output block (+ scw); bigger rows amortize grid
-    # overhead AND widen the MXU dots (rows 8→32 measured 1.10→0.83 ms at
-    # bench geometry), bounded by the kernel's raised scoped-VMEM budget
-    fixed = 4 * n_fft * Up * 2                       # tables
-    out_lanes = 128 if lanes_out else 0
-    def vmem(r):
-        return (fixed
-                + 2 * r * (ws + 8) * block * 4       # staging ×2
-                + S * r * n_fft * (4 + 2 + 2)        # xs f32 + hi/lo bf16
-                + 2 * S * r * Up * 4                 # re/im dots
-                + 2 * S * 2 * max(r, out_lanes) * Up * 4  # out block ×2
-                + 2 * r * n_fft * 4)                 # scw block ×2
-    rows = max((r for r in (32, 16, 8) if B % r == 0
-                and vmem(r) <= 42 << 20), default=0)
-    if not (aligned and rows and nf + 8 - nb >= 0 and ws >= nb):
-        return None
-    from .pallas.cut_dft import cut_dft_tpu
-    q, qb, r = _cut_qqb(starts, lead, block, nf, nb, ws, rows)
-    y, scw = cut_dft_tpu(rx.reshape(-1, T), q, qb,
-                         jnp.reshape(r, (-1,)), _cut_dft_tables(cfg),
-                         block, S, n_fft, body_off, sym_len, cp, sc_off,
-                         rows, ws, cfg.bin_lo, True, lanes_out, interpret)
-    if lanes_out:
-        Yl = y                       # already (S, 2, U, B) — no relayout
-    else:
-        # group-major (B/rows, 2, U, S·rows) → lanes layout (S, 2, U, B):
-        # lane j of group g is (symbol j // rows, batch g·rows + j % rows)
-        Yl = (y.reshape(B // rows, 2, U, S, rows)
-              .transpose(3, 1, 2, 0, 4).reshape(S, 2, U, B))
-    scw = scw.reshape(*lead, n_fft) if sc_off >= 0 else None
-    return Yl, scw
-
-
 def max_cut_start(T: int, need: int, block: int = 128) -> int:
     """Largest window start for which `gather_cut(rx, starts, need, block)`
     returns all `need` samples verbatim on a length-T recording: the cut
-    reads whole blocks of the recording prefix (zero-copy), so the last
-    partial block's ≤ block−1 samples read as zeros. Callers clamp their
-    cut base to it."""
+    reads whole blocks of the recording prefix, so the last partial
+    block's ≤ block−1 samples read as zeros. Callers clamp their cut base
+    to it."""
     return max((T // block) * block - need, 0)
-
-
-def _pallas_stage_bytes() -> int:
-    from .pallas.gather_cut import MAX_STAGE_BYTES
-    return MAX_STAGE_BYTES
 
 
 def find_frame_start(cfg: ModemConfig, rx: jnp.ndarray, chirp: np.ndarray,
@@ -588,7 +271,7 @@ def find_frame_start(cfg: ModemConfig, rx: jnp.ndarray, chirp: np.ndarray,
             seg = seg[..., ::decimate]
             c_d = chirp[::decimate]
             n_lags = min(S // decimate, seg.shape[-1])
-            mabs_d = _mf_bounded_abs(seg, c_d, n_lags, F)
+            mabs_d = jnp.abs(matched_filter(seg, c_d, nfft=F))[..., :n_lags]
             peak = jnp.argmax(mabs_d, axis=-1).astype(jnp.int32)
             peak_val = jnp.max(mabs_d, axis=-1)
             start = _first_arrival(mabs_d, peak, peak_val,
@@ -596,7 +279,7 @@ def find_frame_start(cfg: ModemConfig, rx: jnp.ndarray, chirp: np.ndarray,
             metric = peak_val / (jnp.mean(mabs_d, axis=-1) + 1e-12)
             return (decimate * start).astype(jnp.int32), metric
         n_lags = min(S, seg.shape[-1])
-        mabs = _mf_bounded_abs(seg, chirp, n_lags, F)
+        mabs = jnp.abs(matched_filter(seg, chirp, nfft=F))[..., :n_lags]
     elif R is not None:
         mabs = jnp.abs(matched_filter_spec(R, chirp, rx.shape[-1], nfft))
     else:
@@ -614,9 +297,8 @@ def _first_arrival(mabs: jnp.ndarray, peak: jnp.ndarray,
     it (multipath: the strongest correlation tap can be a reflection).
 
     One masked argmax over the full correlation — argmax returns the FIRST
-    True. The per-row W-window `dynamic_slice` this replaces lowered to a
-    per-element gather (~1 ms at batch 1024 for W=129); this is a fused
-    elementwise pass over data the peak search already touched."""
+    True: a fused elementwise pass over data the peak search already
+    touched, with no per-row window gather."""
     idx = jax.lax.broadcasted_iota(jnp.int32, mabs.shape, mabs.ndim - 1)
     p = peak[..., None]
     valid = ((mabs >= 0.5 * peak_val[..., None])

@@ -1,31 +1,26 @@
-"""Multi-chip scaling (SURVEY.md §3.2, §6.8).
+"""Multi-device scaling (SURVEY.md §3.2, §6.8).
 
-The reference is single-process NumPy with no distribution; the TPU-native
-analog is pure data parallelism over independent frames: shard the frame
-batch across chips over ICI and let XLA insert whatever collectives result
-gathering needs.
+The reference is single-process NumPy with no distribution; the analog here
+is pure data parallelism over independent frames: shard the frame batch
+across devices and let XLA insert whatever collectives result gathering
+needs.
 
 TWO sharding routes, chosen by what they must compose with:
 
 - **`shard_map` over the batch axes (default)** — the production route.
-  Frames are embarrassingly parallel, so each chip runs the COMPLETE
-  single-chip receiver on its local batch shard; the only collectives are
-  the scalar `psum` reductions of the pipeline step's metrics. Crucially
-  this is the route that composes with the Pallas kernels: inside
-  `shard_map` every kernel sees per-shard LOCAL shapes and needs no GSPMD
-  partitioning rule. (A bare `jit(in_shardings=...)` over a >1-chip mesh
-  would instead trace `pallas_call` under GSPMD auto-partitioning, which
-  has no rule for a custom call — it replicates the 10s-of-MB operands
-  with a silent all-gather, or fails to compile.)
+  Frames are embarrassingly parallel, so each device runs the COMPLETE
+  single-device receiver on its local batch shard; the only collectives
+  are the scalar `psum` reductions of the pipeline step's metrics. Inside
+  `shard_map` the LDPC kernel (a Pallas custom call, which GSPMD cannot
+  partition) sees per-shard LOCAL shapes.
 
 - **GSPMD with the sample axis sharded (`seq_axis=...`)** — the
   long-recording analog (SURVEY.md §6.7): a single recording too large for
-  one chip's HBM is sharded along TIME over a second mesh axis, and GSPMD
+  one device is sharded along TIME over a second mesh axis, and GSPMD
   inserts the FFT-side collectives. Sequential DSP over a sharded sample
-  axis cannot be expressed per-shard, so this route traces under
-  `utils.device.xla_twin_only()`: every kernel router picks its XLA twin
-  (plain partitionable HLO — the matmul DFTs, rolls and reductions GSPMD
-  handles well); only `pallas_call` is gated off.
+  axis cannot be expressed per-shard, so this route decodes with a modem
+  whose LDPC runs the XLA min-sum: plain partitionable HLO, where the
+  kernel's custom call would make GSPMD replicate its batch.
 """
 
 from __future__ import annotations
@@ -77,12 +72,12 @@ def sharded_decode(modem, mesh: Mesh, seq_axis: Optional[str] = None):
     of the batch axes' sizes.
 
     Default (`seq_axis=None`): `shard_map` over ALL mesh axes — each shard
-    runs the complete receiver (Pallas kernels engaged on TPU, local
-    shapes) on its B/n_shards frames; zero cross-chip collectives.
+    runs the complete receiver (LDPC kernel included, on local shapes) on
+    its B/n_shards frames; zero cross-device collectives.
 
     `seq_axis='sp'`: GSPMD route — batch over the remaining axes, SAMPLES
-    over `seq_axis` (recordings larger than one chip's HBM). Traced under
-    `xla_twin_only()` so the program is pure partitionable HLO.
+    over `seq_axis` (recordings larger than one device's memory), decoded
+    by a copy of the modem whose LDPC is the XLA min-sum.
     """
     if seq_axis is None:
         axes = tuple(mesh.axis_names)
@@ -94,21 +89,15 @@ def sharded_decode(modem, mesh: Mesh, seq_axis: Optional[str] = None):
             in_specs=P(axes, None), out_specs=P(axes), check_vma=False)
         return jax.jit(fn)
 
-    from ..utils.device import xla_twin_only
+    from ..models import Modem
 
+    xla_modem = Modem(modem.cfg, max_delay=modem.max_delay,
+                      ldpc_backend="xla")
     batch_axes = tuple(a for a in mesh.axis_names if a != seq_axis)
     in_spec = P(batch_axes if batch_axes else None, seq_axis)
     out_spec = P(batch_axes if batch_axes else None)
-
-    def demod_twin(rx):
-        # the context is trace-time Python state: entering it here (inside
-        # the jitted function, which runs exactly when tracing happens)
-        # forces every kernel router in the trace to its XLA twin
-        with xla_twin_only():
-            return modem.demodulate(rx)
-
     return jax.jit(
-        demod_twin,
+        xla_modem.demodulate,
         in_shardings=NamedSharding(mesh, in_spec),
         out_shardings=NamedSharding(mesh, out_spec),
     )
@@ -121,8 +110,8 @@ def sharded_pipeline_step(modem, mesh: Mesh, margin: int = 512):
     under sharding) — and `psum`-reduce the pre-FEC BER across shards: the
     modem-domain analog of a distributed "training step" (SURVEY.md §6.3:
     channel impairments are the fault-injection loop). Each shard runs the
-    single-chip receiver on its local frames — Pallas kernels engaged on
-    real TPU meshes — and only the scalar metrics cross ICI.
+    single-device receiver on its local frames, and only the scalar
+    metrics cross devices.
 
     Returns f(info_bits (B, payload_bits) u8, key, snr_db) ->
     (ber scalar, bits_ok scalar, decoded bits (B, payload_bits)).

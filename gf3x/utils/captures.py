@@ -1,9 +1,9 @@
 """Frozen-capture manifest helpers (tests/fixtures/manifest.json).
 
 One place turns a manifest entry into the decode config, so the capture
-regression tests and the on-TPU parity gate can never drift apart on how
-optional fields (today: the SPEC §5b `bit_loading` out-of-band table) are
-applied."""
+regression tests and the on-card parity check (chip_smoke.py) can never
+drift apart on how optional fields (today: the SPEC §5b `bit_loading`
+out-of-band table) are applied."""
 
 from __future__ import annotations
 

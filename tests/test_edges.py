@@ -1,5 +1,5 @@
 """Edge and fuzz coverage: the bit layer must never crash on garbage, config
-validation must reject bad geometry, mmfft gates must hold."""
+validation must reject bad geometry."""
 
 import numpy as np
 import pytest
@@ -60,49 +60,6 @@ def test_config_validation_rejects_bad_geometry():
     with pytest.raises(AssertionError):
         # frame too small for one codeword
         ModemConfig(fec="ldpc", ldpc_z=96, n_data_symbols=1).validate()
-
-
-def test_mmfft_size_gate():
-    from gf3x.ops.mmfft import good_mm_size
-    assert good_mm_size(1 << 13)   # measured MXU-inverse win down to 8192
-    assert good_mm_size(1 << 14)
-    assert good_mm_size(1 << 16)
-    assert not good_mm_size(1 << 12)
-    assert not good_mm_size(65535)                  # not a power of two
-    assert not good_mm_size(1 << 25)
-
-
-def test_mmfft_parity_multiple_sizes():
-    import jax.numpy as jnp
-    from gf3x.ops.mmfft import irfft_mm, rfft_mm
-    rng = np.random.default_rng(2)
-    for n in (1 << 14, 1 << 15):
-        x = rng.standard_normal((2, n - 137)).astype(np.float32)
-        ref = np.fft.rfft(x, n, axis=-1)
-        got = np.asarray(rfft_mm(jnp.asarray(x), n))
-        assert np.max(np.abs(got - ref)) < 2e-3 * np.max(np.abs(ref))
-        back = np.asarray(irfft_mm(jnp.asarray(got), n))
-        refb = np.fft.irfft(ref, n, axis=-1)
-        assert np.max(np.abs(back - refb)) < 2e-3 * np.max(np.abs(refb) + 1e-9)
-
-
-def test_mmfft_output_pruning_is_a_prefix():
-    """n_out prunes second-stage columns; the kept prefix must match the
-    unpruned transform (same math, fewer columns — only matmul-tiling
-    rounding may differ) and be at least n_out long."""
-    import jax.numpy as jnp
-    from gf3x.ops.mmfft import irfft_mm, rfft_mm
-    rng = np.random.default_rng(3)
-    n = 1 << 14
-    x = rng.standard_normal((3, n - 511)).astype(np.float32)
-    R = rfft_mm(jnp.asarray(x), n)
-    full = np.asarray(irfft_mm(R, n))
-    scale = np.max(np.abs(full))
-    for n_out in (1, 257, n // 2 - 3, n):
-        part = np.asarray(irfft_mm(R, n, n_out=n_out))
-        assert part.shape[-1] >= n_out
-        np.testing.assert_allclose(
-            part, full[..., : part.shape[-1]], atol=1e-5 * scale, rtol=0)
 
 
 def test_safe_filename_strips_traversal():

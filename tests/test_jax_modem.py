@@ -1,8 +1,8 @@
 """JAX modem tests: parity with the golden model + end-to-end configs 1-3.
 
 Parity is asserted on decoded payload bits / waveform closeness, not on
-intermediate floats (SURVEY.md §8 risk "Bit-exactness across float32 TPU vs
-float64 NumPy"). Runs on a virtual 8-device CPU mesh (conftest).
+intermediate floats (SURVEY.md §8 risk "Bit-exactness across float32
+accelerator math vs float64 NumPy"). Runs on a virtual 8-device CPU mesh (conftest).
 """
 
 import numpy as np

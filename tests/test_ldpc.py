@@ -70,18 +70,15 @@ def test_batched_leading_dims():
 
 
 @pytest.mark.slow  # 84 s: cross-product breadth; per-backend parity also
-# covered by test_decodes_* here and the on-chip gate (tools/tpu_parity.py)
+# covered by tests/test_ldpc_kernel.py and chip_smoke.py on the card
 def test_early_exit_matches_across_backends_and_batchings():
     """Early termination must be (a) faster — fewer message passes than the
-    budget, (b) batch-independent — the per-lane freeze rule makes each
+    budget, (b) batch-independent — the per-codeword freeze rule makes each
     codeword's decode equal to decoding it alone, (c) bit-identical across
-    the NumPy / XLA / Pallas / C++ backends."""
-    from gf3x.fec.codes import N_BLOCK_COLS
-    from gf3x.ops.pallas.ldpc_bp import LANES, minsum_totals_tpu
-
+    the NumPy / XLA / Triton-kernel backends."""
     code = LdpcCode(32)
     rng = np.random.default_rng(11)
-    B = LANES
+    B = 128
     u = rng.integers(0, 2, size=(B, code.k), dtype=np.uint8)
     c = code.encode(u)
     # mix of easy and hard lanes so freeze times differ wildly
@@ -93,27 +90,19 @@ def test_early_exit_matches_across_backends_and_batchings():
     assert it_run < 30                       # actually terminated early
     assert np.array_equal(nb, u)
 
-    jb = np.asarray(code.decode_jax(jnp.asarray(llr), 30, use_pallas=False))
-    assert np.array_equal(jb, nb)
+    jb, jit, junsat = code.decode_jax(jnp.asarray(llr), 30, backend="xla",
+                                      with_diag=True)
+    assert np.array_equal(np.asarray(jb), nb)
+    assert int(np.max(np.asarray(jit))) == it_run
+    assert not np.asarray(junsat).any()
 
-    lam_t = jnp.asarray(llr).reshape(B, N_BLOCK_COLS, code.z).transpose(1, 2, 0)
-    tot, pdiag = minsum_totals_tpu(lam_t, code.z, 30, True, True)
-    total = np.asarray(tot).transpose(2, 0, 1).reshape(B, code.n)
-    pb = (total < 0).astype(np.uint8)[:, : code.k]
-    assert np.array_equal(pb, nb)
-    # the kernel's convergence diag matches the NumPy twin: same pass
-    # count for the (single) lane block, every lane satisfied
-    pdiag = np.asarray(pdiag)
-    assert int(pdiag[1, 0]) == it_run
-    assert not pdiag[0].any()
-
-    # lanes-layout entry point (the fused receive tail's path) —
-    # bit-identical, per-lane diag
-    ltot, lit, lunsat = code.decode_lanes(lam_t, 30, use_pallas=False)
-    ltotal = np.asarray(ltot).transpose(2, 0, 1).reshape(B, code.n)
-    assert np.array_equal((ltotal < 0).astype(np.uint8)[:, : code.k], nb)
-    assert not np.asarray(lunsat).any()
-    assert int(np.max(np.asarray(lit))) == it_run
+    # the kernel's logic via the Pallas interpreter: same bits, same
+    # per-codeword pass counts
+    kb, kit, kunsat = code.decode_jax(jnp.asarray(llr), 30, backend="triton",
+                                      interpret=True, with_diag=True)
+    assert np.array_equal(np.asarray(kb), nb)
+    assert np.array_equal(np.asarray(kit), np.asarray(jit))
+    assert not np.asarray(kunsat).any()
 
     # batch-independence: each codeword alone decodes to the same bits
     for i in (0, 1, 63):

@@ -63,10 +63,10 @@ def test_corrects_near_threshold(rate):
     pytest.param("2/3", marks=pytest.mark.slow),   # 56 s
     "3/4",                                          # production multi-rate
     pytest.param("5/6", marks=pytest.mark.slow),   # 68 s
-])  # slow tier re-runs all rates; 4-backend parity at 1/2 is in test_ldpc
+])  # slow tier re-runs all rates; kernel parity per rate: test_ldpc_kernel
 def test_backends_bit_identical(rate):
-    """NumPy golden ≡ XLA ≡ Pallas(interpret) ≡ C++ at every rate, on noisy
-    LLRs with early exit (shared freeze rule)."""
+    """NumPy golden ≡ XLA ≡ Triton kernel (interpret) ≡ C++ at every rate,
+    on noisy LLRs with early exit (shared freeze rule)."""
     code = LdpcCode(32, rate)
     rng = np.random.default_rng(17)
     u = rng.integers(0, 2, size=(8, code.k), dtype=np.uint8)
@@ -76,17 +76,12 @@ def test_backends_bit_identical(rate):
     llr = (2 * y / sigma**2).astype(np.float32)
 
     nb, it_np = code.decode(llr.astype(np.float64), iters=20)
-    xb = np.asarray(code.decode_jax(jnp.asarray(llr), 20, use_pallas=False))
+    xb = np.asarray(code.decode_jax(jnp.asarray(llr), 20, backend="xla"))
     assert np.array_equal(xb, nb)
 
-    # Pallas kernel logic via the interpreter (lane-padded to 128)
-    from gf3x.ops.pallas.ldpc_bp import LANES, minsum_totals_tpu
-    z = code.z
-    lam_t = llr.reshape(8, 24, z).transpose(1, 2, 0)
-    lam_t = np.pad(lam_t, ((0, 0), (0, 0), (0, LANES - 8))).astype(np.float32)
-    tot, diag = minsum_totals_tpu(jnp.asarray(lam_t), z, 20, True, True, rate)
-    pb = (np.asarray(tot)[..., :8].transpose(2, 0, 1)
-          .reshape(8, code.n)[:, : code.k] < 0).astype(np.uint8)
+    # the GPU kernel's logic via the Pallas interpreter
+    pb = np.asarray(code.decode_jax(jnp.asarray(llr), 20, backend="triton",
+                                    interpret=True))
     assert np.array_equal(pb, nb)
 
     native = pytest.importorskip("gf3x.native")

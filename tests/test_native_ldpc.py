@@ -45,7 +45,7 @@ def test_native_corrects_and_matches_jax(pair):
     y = (1.0 - 2.0 * c) + rng.normal(0, sigma, c.shape)
     llr = (2 * y / sigma**2).astype(np.float32)
     nb, ok = nat.decode(llr, iters=20)
-    jb = np.asarray(code.decode_jax(jnp.asarray(llr), 20, use_pallas=False))
+    jb = np.asarray(code.decode_jax(jnp.asarray(llr), 20, backend="xla"))
     assert np.array_equal(nb, jb)
     assert np.array_equal(nb, u)
     assert ok == 16

@@ -103,30 +103,6 @@ def test_streaming_find_frames_on_long_recording():
     assert res.complete and res.payload == data
 
 
-def test_direct_mf_matches_fft_form():
-    """The bounded-search direct (Toeplitz-matmul) matched filter must equal
-    the zero-padded FFT cross-correlation over its lag range. The routing
-    gate only picks it on TPU, so CI calls the kernel explicitly (pure jnp —
-    identical math on CPU; bf16 weights cost ~1e-2 rel, argmax-safe)."""
-    from gf3x.ops.sync import matched_filter, matched_filter_direct, sync_nfft
-
-    m = Modem(CFG)
-    rng = np.random.default_rng(5)
-    for B, seg_len, n_lags in ((4, 2048, 700), (1, 1800, 900)):
-        seg = jnp.asarray(rng.standard_normal((B, seg_len)).astype(np.float32))
-        # plant a chirp so the peak lag is meaningful, not just noise parity
-        pos = 123
-        seg = seg.at[..., pos: pos + m.chirp.size].add(3.0 * m.chirp)
-        ref = np.abs(np.asarray(
-            matched_filter(seg, m.chirp,
-                           nfft=sync_nfft(seg_len, 0))))[..., :n_lags]
-        got = np.asarray(jax.jit(
-            lambda s: matched_filter_direct(s, m.chirp, n_lags))(seg))
-        assert got.shape == ref.shape
-        assert np.max(np.abs(got - ref)) < 3e-2 * np.max(ref)
-        assert np.array_equal(np.argmax(got, -1), np.argmax(ref, -1))
-
-
 def test_bounded_decimated_sync_decodes():
     """Modem(max_delay=...) bounds + decimates the sync correlation (the
     streaming receiver's case). Onsets resolve within a few samples (early

@@ -8,8 +8,8 @@ fix (room-aware `recommend_preset`, landed in r5) the whole lever?
 Method: for each (preset, rt60) cell, decode n_trials frames through a
 seeded room + AWGN chain twice from the SAME recordings — once with the
 standard receiver, once with nv_eff' = (nv_sym + ISI_k) · inv_csi in an
-inline twin of `Modem._eq_syms` — and report both FERs. Run on CPU or TPU
-(the inline twin forces the XLA tail so both arms share every other op).
+inline twin of `Modem._eq_syms` — and report both FERs. Runs on the CPU
+or a GPU (both arms share every other op).
 
 Usage: python tools/isi_room_check.py [--trials 24]
 """

@@ -4,8 +4,8 @@
 Runs the jitted (snr, trial) sweep (gf3x.bench.ber, driver config 3) for
 every preset over AWGN and writes a markdown table of post-FEC BER / FER
 plus one curve PNG per preset (the reference genre's evaluation artifacts,
-SURVEY.md §3 "Evaluation / BER harness"). Runs on the TPU when available
-(~seconds per preset); CPU works too.
+SURVEY.md §3 "Evaluation / BER harness"). Runs on the GPU when JAX has
+one; the CPU works too.
 
     python tools/perf_report.py [--trials 32] [--no-plots]
 """
